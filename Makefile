@@ -1,39 +1,21 @@
-# Round-loop entry points (see docs/BENCHMARKS.md).
+# Entry points. Measurements run on the GPU (see README, "Running").
 
-.PHONY: test tpu-test bench suite scaling projection round native
+.PHONY: test smoke bench suite scaling native
 
-# `make round` = full artifact refresh, run strictly AFTER the last code
-# commit so every committed artifact cites the release SHA (r3 verdict #7:
-# tpu_test_log.txt was stamped 2 commits behind HEAD). Order: headline
-# bench -> suite -> scaling -> pod projection -> hardware kernel
-# statistics -> extraction.
-round:           ## refresh every committed artifact from a clean HEAD
-	@git diff --quiet HEAD || (echo "ERROR: uncommitted (worktree or staged) changes — commit code first, then 'make round'" && exit 1)
-	python bench.py --write-artifact
-	python -m tsu_tpu.benchmarks.runner
-	python -m tsu_tpu.benchmarks.runner --quick --output-dir visual_output/quick
-	python -m tsu_tpu.benchmarks.scaling --output-dir visual_output
-	python scripts/scaling_projection.py
-	python scripts/critical_ess.py
-	sh scripts/run_tpu_tests.sh
-	python scripts/extract_benchmarks.py
-	@echo "round artifacts refreshed at $$(git rev-parse --short HEAD)"
-
-test:            ## CPU 8-device virtual-mesh suite (CI default)
+test:            ## CPU 8-device virtual-mesh suite (the kernel in interpret mode)
 	python -m pytest tests/ -q
 
-tpu-test:        ## real-hardware kernel statistics; writes visual_output/tpu_test_log.txt
-	sh scripts/run_tpu_tests.sh
+smoke:           ## one-card smoke on the GPU: every deployment vs its reference
+	python chip_smoke.py
 
-bench:           ## driver headline (one JSON line) + kernel_bench.json artifact
-	python bench.py --write-artifact
+bench:           ## headline flips/s on the GPU, one JSON line
+	python bench.py
 
-suite:           ## full benchmark suite + committed artifacts
+suite:           ## full benchmark suite (writes visual_output/)
 	python -m tsu_tpu.benchmarks.runner
-	python scripts/extract_benchmarks.py
 
-scaling:         ## scaling rows on the visible mesh (pod: scripts/pod_scaling.sh)
+scaling:         ## scaling rows on the visible devices
 	python -m tsu_tpu.benchmarks.scaling
 
-native:          ## rebuild the native C++ library
+native:          ## build the native C++ library (otherwise built at first use)
 	sh tsu_tpu/native/build.sh

@@ -2,11 +2,11 @@
 
 Mirrors the reference's examples/bayesian_nn_demo.py capability (sparse-data
 regression with credible intervals, then active-learning selection) on the
-TPU engine: the BNN trains by true ELBO variational inference (jitted
+JAX engine: the BNN trains by true ELBO variational inference (jitted
 value_and_grad + optax, learned mu AND sigma — cf. reference tsu/ml.py:358-456
 whose sigma merely decayed), and MC prediction vmaps over weight samples.
 
-Run: python examples/bayesian_nn_demo.py  (TPU if available; CPU works)
+Run: python examples/bayesian_nn_demo.py  (GPU if available; CPU works)
 """
 
 import numpy as np

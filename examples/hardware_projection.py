@@ -1,8 +1,8 @@
-"""Hardware performance analysis: real-TPU roofline vs TSU-chip projections.
+"""Hardware performance analysis: GPU roofline vs TSU-chip projections.
 
 The reference's examples/tsu_hardware_timing.py projects a fictional
 thermodynamic chip. Here the roles invert (SURVEY.md §2 rows 15-16): the
-roofline model analyses the REAL chip this framework runs on, and the
+roofline model analyses the REAL card this framework runs on, and the
 TSU-chip projection models are kept for API parity so reference users can
 still run their what-if studies.
 
@@ -12,24 +12,21 @@ Run: python examples/hardware_projection.py
 from tsu_tpu.hardware import (
     ConservativeEstimator,
     HardwarePerformanceEstimator,
-    TPUHardwareSpec,
     TSUHardwareSpec,
     checkerboard_roofline,
+    device_peaks,
 )
 
 
 def main():
-    # --- Real chip: where is the speed of light? ---------------------------
-    spec = TPUHardwareSpec()  # v5e defaults
-    print(f"[1] Roofline for the checkerboard kernel on {spec.name}")
+    # --- Real card: where is the speed of light? --------------------------
+    spec = device_peaks("NVIDIA H100 80GB HBM3")
+    print(f"[1] Memory roofline of a checkerboard sweep on {spec.name}")
     for size in (1024, 4096, 16384):
-        r = checkerboard_roofline(spec, size, size, dtype_bytes=2)
-        print(f"    {size}x{size} bf16: {r['flips_per_s_ceiling']:.2e} "
-              f"flips/s ceiling ({r['bound']}-bound)")
-    measured = 1.0e11  # docs/BENCHMARKS.md, best trial at 4096^2
-    r4096 = checkerboard_roofline(spec, 4096, 4096, dtype_bytes=2)
-    print(f"    measured 4096^2: {measured:.2e} flips/s = "
-          f"{measured / r4096['flips_per_s_ceiling']:.0%} of the ceiling")
+        r = checkerboard_roofline(spec, size, size, bytes_per_site=2.0)
+        print(f"    {size}x{size} int8: {r['flips_per_s_ceiling']:.2e} "
+              "flips/s ceiling")
+    print("    measured rates: PERF.md (taken on the card by chip_smoke.py)")
 
     # --- Fictional TSU chip: the reference's projection, kept honest -------
     print("\n[2] TSU-chip projections (reference parity, tsu/hardware.py)")
@@ -45,8 +42,8 @@ def main():
           f"{r['energy_joules']:.1e} J)")
     print(f"    conservative: {t_c * 1e3:.3f} ms "
           f"({t_c / t:.0f}x slower than the optimistic model)")
-    print("    (projections describe a hypothetical chip; the measured TPU "
-          "numbers above are real)")
+    print("    (projections describe a hypothetical chip; the roofline above "
+          "describes the real card)")
 
 
 if __name__ == "__main__":

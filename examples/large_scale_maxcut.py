@@ -1,4 +1,4 @@
-"""100k-node MAX-CUT: sparse ELL annealing on TPU vs the native greedy bound.
+"""100k-node MAX-CUT: sparse ELL annealing on the device vs the native greedy bound.
 
 BASELINE config 5 scale. The dense-J path caps out at tens of spins; the
 sparse path is O(N * max_degree) memory and anneals entirely on device.
@@ -31,7 +31,7 @@ def main(n=100_000, m=500_000, n_steps=2000, seed=0):
     out = maxcut_sparse(jax.random.key(seed), n, edges, weights,
                         n_steps=n_steps, n_chains=8)
     t_anneal = time.perf_counter() - t0
-    print(f"TPU annealing ({n_steps} steps x 8 chains): "
+    print(f"device annealing ({n_steps} steps x 8 chains): "
           f"cut={out['cut_value']:.0f} ({out['cut_value'] / len(edges):.1%}) "
           f"in {t_anneal:.2f}s")
 

@@ -30,7 +30,7 @@ def main():
     print(f"2-bit ferromagnet: aligned fraction = "
           f"{np.mean(bits[:, 0] == bits[:, 1]):.2f}")
 
-    # 4. 2-D Ising lattice (checkerboard engine; Pallas kernel on TPU).
+    # 4. 2-D Ising lattice (checkerboard engine; Pallas kernel on the GPU).
     grid = tsu.IsingGrid((32, 32), coupling_strength=1.0, periodic=True, seed=0)
     states = grid.sample(n_samples=50, temperature=1.8)
     print(f"32x32 Ising @ T=1.8: |M| = {abs(grid.magnetization(states)):.3f}")

@@ -1,8 +1,8 @@
 """Edwards-Anderson +-J spin-glass ground-state search at lattice scale.
 
 The flagship disordered-lattice workflow: random +-1 bonds on a periodic
-2-D lattice, annealed through the discrete-table Pallas bond kernel
-(~6.5e10 flips/s on one TPU chip — docs/BENCHMARKS.md), best state over
+2-D lattice, annealed through the GPU sweep kernel on packed bond codes
+(its rate on the card: PERF.md), best state over
 independent restarts. The known ground-state energy density of the 2-D
 +-J EA model is ~-1.40 J/site; a few thousand annealing sweeps with
 restarts should land within a couple percent.

@@ -2,7 +2,7 @@
 
 Parity with the reference's DOCSTRINGS.md artifact, generated from the
 code so it can never drift: every symbol exported by ``tsu_tpu.__all__``
-plus the extended TPU-native surfaces, with signatures and first
+plus the extended engine surfaces, with signatures and first
 docstring paragraphs.
 
 Run: python scripts/gen_docstrings.py  (part of docs upkeep, not `make
@@ -20,10 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # Force CPU: generating docs must not touch (or wait on) the accelerator.
 import jax  # noqa: E402
 
-try:
-    jax.config.update("jax_platforms", "cpu")
-except Exception:
-    pass
+jax.config.update("jax_platforms", "cpu")
 
 EXTRA_SURFACES = [
     ("tsu_tpu.models.lattice_sampler", ["sample_grid", "sample_grid_ensemble"]),
@@ -35,10 +32,8 @@ EXTRA_SURFACES = [
      ["parallel_tempering_lattice", "parallel_tempering_bonds"]),
     ("tsu_tpu.parallel.tempering_sharded",
      ["parallel_tempering_replica_sharded"]),
-    ("tsu_tpu.ops.checkerboard_fused",
-     ["fused_sweeps", "fused_sweeps_batched"]),
-    ("tsu_tpu.ops.checkerboard_bonds_pallas",
-     ["checkerboard_sweeps_bonds_pallas"]),
+    ("tsu_tpu.ops.select", ["choose_sweep"]),
+    ("tsu_tpu.ops.checkerboard_triton", ["halfsweep", "sweeps"]),
     ("tsu_tpu.checkpoint", ["save_state", "restore_state"]),
 ]
 
@@ -80,7 +75,7 @@ def main():
         "",
         "Generated by `python scripts/gen_docstrings.py` — do not edit by",
         "hand. Reference-parity symbols first (`tsu_tpu.__all__`, mirroring",
-        "the reference package root), then the TPU-native extended surfaces.",
+        "the reference package root), then the extended engine surfaces.",
         "",
         "## Flat namespace (`import tsu_tpu as tsu`)",
         "",
@@ -89,7 +84,7 @@ def main():
         obj = getattr(tsu_tpu, name)
         out.append(_entry(name, obj))
         out.append("")
-    out.append("## Extended TPU-native surfaces")
+    out.append("## Extended engine surfaces")
     out.append("")
     for mod_name, names in EXTRA_SURFACES:
         mod = __import__(mod_name, fromlist=names)

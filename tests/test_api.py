@@ -137,14 +137,14 @@ class TestProbabilisticModel:
 class TestBackend:
     def test_enum_values(self):
         assert Backend.EMULATOR.value == "emulator"
-        assert Backend.TPU.value == "tpu"
+        assert Backend.GPU.value == "gpu"
 
-    def test_tpu_backend_rejected_on_cpu(self):
+    def test_gpu_backend_rejected_on_cpu(self):
         import jax
 
-        if jax.default_backend() != "tpu":
+        if jax.default_backend() != "gpu":
             with pytest.raises(ConfigurationError):
-                GaussianSampler(backend=Backend.TPU)
+                GaussianSampler(backend=Backend.GPU)
 
 
 class TestReferenceAliases:

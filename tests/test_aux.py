@@ -60,11 +60,19 @@ class TestProfiling:
 
 class TestHardware:
     def test_roofline(self):
-        from tsu_tpu.hardware import TPUHardwareSpec, checkerboard_roofline
+        from tsu_tpu.hardware import checkerboard_roofline, device_peaks
 
-        r = checkerboard_roofline(TPUHardwareSpec(), 4096, 4096)
-        assert r["bound"] in ("memory", "compute")
-        assert r["flips_per_s_ceiling"] > 1e10
+        peaks = device_peaks("NVIDIA H100 80GB HBM3")
+        r = checkerboard_roofline(peaks, 4096, 4096, bytes_per_site=2.0)
+        # 2 B/site at 3.35 TB/s: 1.675e12 site updates per second.
+        assert r["flips_per_s_ceiling"] == pytest.approx(1.675e12)
+        assert r["bytes_per_sweep"] == 2 * 4096 * 4096
+
+    def test_unknown_device_has_no_peaks(self):
+        from tsu_tpu.hardware import device_peaks
+
+        with pytest.raises(ValueError, match="no published peaks"):
+            device_peaks("cpu")
 
     def test_estimator_parity(self):
         from tsu_tpu.hardware import (ConservativeEstimator,

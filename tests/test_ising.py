@@ -287,7 +287,7 @@ class TestPerBondCouplings:
     def test_large_random_bond_lattice_runs(self, rng):
         """256^2 random-bond observables on the stencil engine — far above
         the old 4,096-spin dense cap (1024^2 runs the same code path on
-        TPU; CI keeps it small for time)."""
+        the card; CI keeps it small for time)."""
         from tsu_tpu.config import IsingConfig
         from tsu_tpu.models.ising import IsingGrid
 

@@ -145,11 +145,9 @@ class TestLatticeAnnealing:
         assert not discrete_table_applicable(Jh, Jv, 0.5)
         assert not discrete_table_applicable(Jh * 0.7, Jv, 0.0)
 
-    def test_spin_glass_chunked_tracking_cpu_pallas(self):
-        """The Pallas-branch chunked best-state tracking must report an
+    def test_spin_glass_chunked_tracking_cpu_pallas(self, kernel_interpret):
+        """The kernel route's chunked best-state tracking must report an
         energy that matches the returned state (interpret mode)."""
-        from jax.experimental.pallas import tpu as pltpu
-
         from tsu_tpu.ops.checkerboard_bonds import lattice_energy_bonds
         from tsu_tpu.samplers.annealing import anneal_spin_glass
 
@@ -158,9 +156,8 @@ class TestLatticeAnnealing:
                                             (8, 8)), 1.0, -1.0)
         Jv = jnp.where(jax.random.bernoulli(jax.random.fold_in(key, 1), 0.5,
                                             (8, 8)), 1.0, -1.0)
-        with pltpu.force_tpu_interpret_mode():
-            st, e = anneal_spin_glass(jax.random.key(4), Jh, Jv,
-                                      n_steps=60, use_pallas=True)
+        st, e = anneal_spin_glass(jax.random.key(4), Jh, Jv,
+                                  n_steps=60, use_pallas=True)
         e_check = float(lattice_energy_bonds(jnp.asarray(st), Jh, Jv, 0.0,
                                              periodic=True))
         assert abs(e_check - e) < 1e-4

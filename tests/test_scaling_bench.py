@@ -1,9 +1,6 @@
-"""Smoke tests for the scaling/projection measurement harnesses.
-
-These functions ARE the `make round` artifact pipeline; a silent breakage
-here breaks every committed scaling artifact, so they get fast CPU-mesh
-smoke coverage (tiny shapes, mechanics only — the numbers themselves are
-only meaningful on the chip)."""
+"""Smoke tests for the scaling measurement harness: fast CPU-mesh coverage
+of the mechanics at tiny shapes (the numbers themselves are only meaningful
+on the card)."""
 
 import numpy as np
 
@@ -13,7 +10,7 @@ class TestScalingHarness:
         from tsu_tpu.benchmarks.scaling import measure_lattice_matched
 
         out = measure_lattice_matched(size=32, n_sweeps=4, n_iters=1)
-        assert out["kernel"] in ("fused", "xla")
+        assert out["kernel"] in ("triton", "xla")
         assert out["flips_per_s"] > 0
         assert out["size"] == 32 and out["n_sweeps"] == 4
 
@@ -36,33 +33,6 @@ class TestScalingHarness:
 
 
 class TestProjection:
-    def test_project_efficiency_monotone_in_bandwidth(self):
-        import importlib.util
-        import os
-
-        spec = importlib.util.spec_from_file_location(
-            "scaling_projection",
-            os.path.join(os.path.dirname(__file__), "..", "scripts",
-                         "scaling_projection.py"),
-        )
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        measured = {"size": 4096, "itemsize": 2,
-                    "sweep_time_s": 140e-6, "flips_per_s": 1.2e11}
-        fast = mod.project(measured, 4, 1.0e11)
-        slow = mod.project(measured, 4, 1.0e9)
-        assert 0 < slow["projected_efficiency"] < fast["projected_efficiency"] <= 1
-        # Aggregate throughput scales with chips times efficiency.
-        # projected_efficiency is rounded to 4 places in the artifact;
-        # the aggregate uses the unrounded value.
-        assert np.isclose(
-            fast["projected_aggregate_flips_per_s"],
-            measured["flips_per_s"] * 4 * fast["projected_efficiency"],
-            rtol=1e-3,
-        )
-        # Halo bytes: 2 rows x C/2 cols x itemsize x 2 directions.
-        assert fast["halo_bytes_per_sweep_per_shard"] == 2 * 2048 * 2 * 2
-
     def test_bnn_dp_scaling_smoke(self):
         from tsu_tpu.benchmarks.scaling import measure_bnn_dp_scaling
 

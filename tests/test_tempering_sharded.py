@@ -7,9 +7,11 @@ import pytest
 from tsu_tpu.parallel.mesh import make_mesh
 from tsu_tpu.parallel.tempering_sharded import parallel_tempering_replica_sharded
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 4, reason="needs >=4 (virtual) devices"
-)
+
+@pytest.fixture(autouse=True)
+def _four_devices():
+    if len(jax.devices()) < 4:
+        pytest.skip("needs >=4 (virtual) devices")
 
 
 def test_shapes_and_stats():
@@ -53,25 +55,17 @@ def test_swaps_happen():
     assert (out["rungs"][0] != out["rungs"][-1]).any() or out["swap_accepts"] > 5
 
 
-@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs >=2 devices")
-def test_replica_sharded_fused_path_interpret():
-    """The batched-fused local sweep inside the replica-sharded PT must run
-    under shard_map (interpret mode) and produce valid spins + swap stats."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tsu_tpu.parallel import make_mesh
-    from tsu_tpu.parallel.tempering_sharded import (
-        parallel_tempering_replica_sharded,
+def test_replica_sharded_fused_path_interpret(kernel_interpret):
+    """The batched GPU-kernel local sweep inside the replica-sharded PT must
+    run under shard_map (interpret mode) and produce valid spins + swap
+    stats."""
+    mesh = make_mesh(replica=2, devices=jax.devices()[:2])
+    out = parallel_tempering_replica_sharded(
+        mesh, jax.random.key(3), (8, 8),
+        temperatures=np.geomspace(1.5, 4.0, 4),
+        n_samples=3, swap_interval=1, n_sweeps=1, n_burnin=2,
+        use_pallas=True,
     )
-
-    mesh = make_mesh(replica=2)
-    with pltpu.force_tpu_interpret_mode():
-        out = parallel_tempering_replica_sharded(
-            mesh, jax.random.key(3), (8, 8),
-            temperatures=np.geomspace(1.5, 4.0, 4),
-            n_samples=3, swap_interval=1, n_sweeps=1, n_burnin=2,
-            use_pallas=True,
-        )
     m = np.asarray(out["magnetization"])
     assert m.shape == (3, 4)
     assert np.all(np.abs(m) <= 1.0)

@@ -1,15 +1,15 @@
-"""tsu_tpu — a TPU-native probabilistic inference engine.
+"""tsu_tpu — a JAX probabilistic inference engine for NVIDIA GPUs.
 
 A from-scratch rebuild of the capabilities of the TSU (Thermodynamic Sampling
-Unit) emulator (reference: Arsham-001/tsu-emulator) designed TPU-first:
+Unit) emulator (reference: Arsham-001/tsu-emulator) on JAX:
 
 - Energy models are JAX-traceable functions compiled by XLA; gradients come
   from ``jax.grad`` (reference uses finite differences, tsu/core.py:82-98).
 - Langevin/HMC samplers are fused ``lax.scan`` loops vmapped over chains
   (reference: per-sample Python loops, tsu/core.py:140-159).
 - Ising/Boltzmann sampling uses vectorized checkerboard (red/black) Gibbs
-  sweeps with an optional Pallas TPU kernel (reference: scalar per-bit Python
-  loop, tsu/gibbs.py:128-162).
+  sweeps, with a Pallas GPU kernel where it is faster (reference: scalar
+  per-bit Python loop, tsu/gibbs.py:128-162).
 - Large lattices shard spatially over a ``jax.sharding.Mesh`` with halo
   exchange via collectives; chains/replicas shard over their own mesh axes
   (reference simulates parallelism with sequential loops, tsu/gibbs.py:450-487).
@@ -45,7 +45,6 @@ from tsu_tpu.samplers import (
 )
 from tsu_tpu.hardware import (
     HardwareEmulator,
-    TPUHardwareSpec,
     TSUHardwareSpec,
     HardwarePerformanceEstimator,
     ConservativeEstimator,
@@ -83,16 +82,27 @@ from tsu_tpu.api import (
     compare_samplers,
     optimize,
 )
-from tsu_tpu.visualization import (
-    plot_predictions_with_uncertainty,
-    plot_uncertainty_vs_error,
-    plot_energy_landscape_2d,
-    plot_ising_state,
-    plot_phase_transition,
-    plot_sampling_diagnostics,
-    plot_active_learning_curve,
-    plot_interactive_energy_landscape,
+# Plotting needs matplotlib (and plotly for the interactive landscape),
+# which the sampling engine does not: the plot functions load on first use.
+_PLOTS = (
+    "plot_predictions_with_uncertainty",
+    "plot_uncertainty_vs_error",
+    "plot_energy_landscape_2d",
+    "plot_ising_state",
+    "plot_phase_transition",
+    "plot_sampling_diagnostics",
+    "plot_active_learning_curve",
+    "plot_interactive_energy_landscape",
 )
+
+
+def __getattr__(name):
+    if name in _PLOTS:
+        from tsu_tpu import visualization
+
+        return getattr(visualization, name)
+    raise AttributeError(f"module 'tsu_tpu' has no attribute {name!r}")
+
 
 # Alias mirroring the reference (`tsu/__init__.py:22`).
 TSU = ThermalSamplingUnit
@@ -114,7 +124,6 @@ __all__ = [
     "GibbsConfig",
     "HardwareEmulator",
     # Hardware projection
-    "TPUHardwareSpec",
     "TSUHardwareSpec",
     "HardwarePerformanceEstimator",
     "ConservativeEstimator",

@@ -38,8 +38,7 @@ class Backend(Enum):
     """
 
     CPU = "cpu"
-    TPU = "tpu"
-    TPU_POD = "tpu_pod"
+    GPU = "gpu"
     EMULATOR = "emulator"  # alias: runs on whatever jax.default_backend() is
 
 
@@ -63,7 +62,7 @@ class Sampler(ABC):
         config: Optional[TSUConfig] = None,
         seed: Optional[int] = None,
     ):
-        if backend in (Backend.TPU, Backend.TPU_POD) and jax.default_backend() != "tpu":
+        if backend is Backend.GPU and jax.default_backend() != "gpu":
             raise ConfigurationError(
                 f"backend {backend} requested but jax.default_backend() is "
                 f"{jax.default_backend()!r}"

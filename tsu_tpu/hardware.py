@@ -1,12 +1,12 @@
-"""Hardware performance models: TPU roofline + fictional-TSU projections.
+"""Hardware performance models: GPU peaks + fictional-TSU projections.
 
 The reference projects performance of a fictional thermodynamic chip
 (tsu/hardware.py:16-199, tsu/gibbs.py:396-487). This build runs on *real*
 parallel hardware, so the roles invert (SURVEY.md §2 rows 15-16):
 
-* ``TPUHardwareSpec`` / ``roofline`` — speed-of-light analysis for the actual
-  chip: is the checkerboard kernel HBM-bound, and how close is measured
-  throughput to the bandwidth bound? Used by bench.py to report efficiency.
+* ``device_peaks`` / ``checkerboard_roofline`` — published peaks of the
+  card the program runs on, keyed by ``device_kind``, and the memory
+  speed-of-light of a checkerboard sweep against them.
 * ``TSUHardwareSpec`` / ``HardwarePerformanceEstimator`` / ``HardwareEmulator``
   — API-parity projection models so reference users keep their workflows;
   `HardwareEmulator.sample_parallel` now runs chains genuinely in parallel
@@ -21,59 +21,62 @@ from typing import Optional, Tuple
 import numpy as np
 
 
-# -- real-chip roofline ------------------------------------------------------
+# -- the card's published peaks -----------------------------------------------
 
 
 @dataclass(frozen=True)
-class TPUHardwareSpec:
-    """Per-chip specs used for speed-of-light estimates.
+class DevicePeaks:
+    """Published peak rates of one accelerator (dense, no sparsity)."""
 
-    Defaults approximate a TPU v5e: ~819 GB/s HBM bandwidth, ~197 bf16
-    TFLOP/s MXU, vector unit throughput in the low TOP/s. Override per
-    deployment; only ratios matter for bound analysis.
-    """
-
-    name: str = "tpu-v5e"
-    hbm_bandwidth_gbps: float = 819.0
-    mxu_bf16_tflops: float = 197.0
-    vpu_gops: float = 3_900.0       # elementwise f32 ops/s (approx)
-    vmem_bytes: int = 128 * 2**20
-    ici_bandwidth_gbps: float = 400.0  # per-link bidirectional
+    name: str
+    hbm_bytes_per_s: float
+    bf16_flops: float
+    f32_flops: float
+    source: str
 
 
-def checkerboard_roofline(
-    spec: TPUHardwareSpec,
-    rows: int,
-    cols: int,
-    dtype_bytes: int = 4,
-    ops_per_site: float = 24.0,
-) -> dict:
-    """Speed-of-light spin-flips/s for the checkerboard kernel on one chip.
+_H100_SXM = DevicePeaks(
+    name="NVIDIA H100 SXM",
+    hbm_bytes_per_s=3.35e12,
+    bf16_flops=989e12,
+    f32_flops=67e12,
+    source="NVIDIA H100 Tensor Core GPU data sheet (SXM, 700 W)",
+)
 
-    Per full sweep the kernel reads each color plane once (as neighbors) and
-    writes each once: 2 * N * dtype_bytes bytes moved per sweep of N sites.
-    The compute bound counts VPU ops per site (neighbor adds, threshold
-    table, PRNG, select).
+# Keyed by jax.Device.device_kind.
+PEAKS = {"NVIDIA H100 80GB HBM3": _H100_SXM}
 
-    CALIBRATED against the r4 device trace (docs/BENCHMARKS.md): at bf16
-    (dtype_bytes=2) this model says compute-bound with a 1.6e11 ceiling at
-    the default 24 ops/site; the fused kernel measures 1.37e11 intrinsic =
-    ~85% of that bound, and the variant decomposition confirms the binding
-    side is the VPU (PRNG+select+write floor 1.9e11), not HBM.
+
+def device_peaks(device_kind: str) -> DevicePeaks:
+    """Peaks of the device JAX reports as ``device_kind``; a device that is
+    not in the table is an error, never a default."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device {device_kind!r}; add it to "
+            "tsu_tpu.hardware.PEAKS with its source") from None
+
+
+def checkerboard_roofline(peaks: DevicePeaks, rows: int, cols: int,
+                          bytes_per_site: float = 2.0) -> dict:
+    """Memory speed-of-light of a checkerboard sweep of a (rows, cols)
+    lattice.
+
+    ``bytes_per_site``: device-memory bytes one full sweep moves per site —
+    2 for int8 spins on the GPU kernel (each half-sweep reads the other
+    colour and writes its own), 3 with +-J bond codes, 8 for the float32
+    XLA engine before its random-number traffic.
     """
     n_sites = rows * cols
-    bytes_per_sweep = 2 * n_sites * dtype_bytes
-    t_mem = bytes_per_sweep / (spec.hbm_bandwidth_gbps * 1e9)
-    t_compute = n_sites * ops_per_site / (spec.vpu_gops * 1e9)
-    t_sweep = max(t_mem, t_compute)
+    bytes_per_sweep = bytes_per_site * n_sites
+    t_mem = bytes_per_sweep / peaks.hbm_bytes_per_s
     return {
         "sites": n_sites,
         "bytes_per_sweep": bytes_per_sweep,
         "t_mem_s": t_mem,
-        "t_compute_s": t_compute,
-        "bound": "memory" if t_mem >= t_compute else "compute",
-        "flips_per_s_ceiling": n_sites / t_sweep,
-        "sweeps_per_s_ceiling": 1.0 / t_sweep,
+        "flips_per_s_ceiling": n_sites / t_mem,
+        "sweeps_per_s_ceiling": 1.0 / t_mem,
     }
 
 

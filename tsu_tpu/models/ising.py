@@ -209,8 +209,11 @@ class IsingGrid(IsingModel):
     (cf. tsu/models/ising.py:307-421).
 
     For even-sized grids, sampling runs the vectorized checkerboard sweeps
-    (Pallas kernel on TPU, XLA elsewhere) on the stencil representation —
-    no dense J is ever built. Odd-sized grids fall back to the dense path.
+    (the GPU kernel or XLA, as :func:`tsu_tpu.ops.select.choose_sweep`
+    decides; ``use_pallas`` True/False overrides it) on the stencil
+    representation — no dense J is ever built. Odd-sized grids fall back to
+    the dense path. ``last_route`` records the sweep the last ``sample``
+    call ran ("triton", "xla" or "dense").
     """
 
     def __init__(
@@ -229,9 +232,8 @@ class IsingGrid(IsingModel):
         self.shape = (rows, cols)
         self.periodic = periodic
         self.coupling_strength = coupling_strength
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
         self._use_pallas = use_pallas
+        self.last_route: Optional[str] = None
         self._fast = rows % 2 == 0 and cols % 2 == 0
         # Per-bond couplings (random-bond / spin-glass lattices): (Jh, Jv)
         # planes, each (rows, cols); None means uniform coupling_strength.
@@ -360,6 +362,14 @@ class IsingGrid(IsingModel):
                 elif self.periodic and rows > 2:
                     self.set_coupling(i, c, J)
 
+    def _route(self) -> str:
+        """The sweep implementation for this grid's coupling contract."""
+        from tsu_tpu.ops.select import bond_contract, choose_sweep
+
+        contract = ("uniform" if self._Jh is None
+                    else bond_contract(self._Jh, self._Jv))
+        return choose_sweep(self.shape, contract, use_pallas=self._use_pallas)
+
     def _flat_to_grid(self, flat_state: np.ndarray) -> np.ndarray:
         return np.asarray(flat_state).reshape(self.shape)
 
@@ -414,6 +424,7 @@ class IsingGrid(IsingModel):
         spins, matching the reference's flat-state convention
         (tsu/models/ising.py:150-181)."""
         if not self._fast:
+            self.last_route = "dense"
             return super().sample(n_samples, initial_state, temperature)
 
         from tsu_tpu.models.lattice_sampler import sample_grid
@@ -428,6 +439,8 @@ class IsingGrid(IsingModel):
                 1.0, -1.0,
             ).astype(jnp.float32)
 
+        route = self._route()
+        self.last_route = route
         if self._Jh is not None:
             from tsu_tpu.ops.checkerboard_bonds import sample_lattice_bonds
 
@@ -436,7 +449,7 @@ class IsingGrid(IsingModel):
                 jnp.asarray(self._Jh), jnp.asarray(self._Jv),
                 n_samples=n_samples, temperature=T,
                 n_burnin=self.config.n_burnin, n_sweeps=self.config.n_sweeps,
-                periodic=self.periodic, use_pallas=self._use_pallas,
+                periodic=self.periodic, route=route,
             )
             return np.asarray(states).reshape(n_samples, -1)
 
@@ -448,7 +461,7 @@ class IsingGrid(IsingModel):
             n_burnin=self.config.n_burnin,
             n_sweeps=self.config.n_sweeps,
             periodic=self.periodic,
-            use_pallas=self._use_pallas,
+            route=route,
         )
         return np.asarray(states).reshape(n_samples, -1)
 
@@ -485,7 +498,7 @@ class IsingGrid(IsingModel):
                 n_samples=n_samples, temperature=T,
                 n_burnin=self.config.n_burnin, n_sweeps=self.config.n_sweeps,
                 periodic=self.periodic, collect="observables",
-                use_pallas=self._use_pallas,
+                route=self._route(),
             )
             return {
                 "magnetization": np.asarray(out["magnetization"]),
@@ -527,9 +540,9 @@ class IsingGrid(IsingModel):
         if not self._fast:
             return super().find_ground_state(n_steps)
         if self._Jh is not None:
-            # anneal_spin_glass routes to the Pallas bond kernel on TPU
-            # (discrete threshold table for +-J bonds) and to the XLA
-            # best-tracking anneal elsewhere.
+            # anneal_spin_glass runs +-J bonds on the GPU kernel and
+            # continuous bonds (or other platforms) on the XLA
+            # best-tracking anneal.
             from tsu_tpu.samplers.annealing import anneal_spin_glass
 
             best, e = anneal_spin_glass(
@@ -587,9 +600,9 @@ def demonstrate_phase_transition(
     Returns {size: {"temperatures", "magnetization", "susceptibility",
     "specific_heat"}}.
 
-    ``ensemble`` (default: auto — on whenever the size allows) runs ALL
+    ``ensemble`` (default: auto — on whenever the size is even) runs ALL
     temperature points of a size as ONE batched program: each T point is a
-    lattice in a fused-kernel ensemble (models/lattice_sampler.py:
+    lattice in a batched-sweep ensemble (models/lattice_sampler.py:
     sample_grid_ensemble), so the whole scan is n_samples batched launches
     instead of a Python loop of per-T compiled scans. ``ensemble=False``
     restores the per-T ``IsingGrid.sample`` path.
@@ -599,7 +612,7 @@ def demonstrate_phase_transition(
     T_c = 2.0 / np.log(1.0 + np.sqrt(2.0))  # Onsager, ≈2.269
     results = {}
     for idx, size in enumerate(sizes):
-        use_ensemble = ensemble if ensemble is not None else size % 8 == 0
+        use_ensemble = ensemble if ensemble is not None else size % 2 == 0
         if use_ensemble:
             from tsu_tpu.models.lattice_sampler import sample_grid_ensemble
 
@@ -618,7 +631,6 @@ def demonstrate_phase_transition(
                 jax.random.fold_in(key, 1), lat0, Ts,
                 n_samples=n_samples, n_burnin=200, n_sweeps=2,
                 periodic=True,
-                use_pallas=jax.default_backend() == "tpu",
             )
             m = np.asarray(out["magnetization"])  # (n_samples, B), per spin
             e = np.asarray(out["energy"])         # (n_samples, B), total

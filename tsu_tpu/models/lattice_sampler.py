@@ -1,8 +1,9 @@
-"""Single-device lattice sampling entry: picks the Pallas or XLA backend.
+"""Single-device lattice sampling entry: runs the sweep the chooser picks.
 
 Thin glue between IsingGrid (tsu_tpu/models/ising.py) and the checkerboard
-engines (tsu_tpu/ops/). Both backends implement identical heat-bath
-semantics; tests cross-validate them statistically.
+engines (tsu_tpu/ops/). Both routes implement identical heat-bath
+semantics; tests cross-validate them statistically. ``route`` comes from
+:func:`tsu_tpu.ops.select.choose_sweep`.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from tsu_tpu.ops.checkerboard import (
 @partial(
     jax.jit,
     static_argnames=("n_samples", "n_burnin", "n_sweeps", "J", "field",
-                     "periodic", "use_pallas"),
+                     "periodic", "route"),
 )
 def sample_grid(
     key,
@@ -35,42 +36,26 @@ def sample_grid(
     n_burnin: int = 100,
     n_sweeps: int = 1,
     periodic: bool = False,
-    use_pallas: bool = False,
+    route: str = "xla",
 ):
     """Checkerboard-Gibbs sample a (R, C) lattice; returns (n_samples, R, C)."""
     red, black = split_checkerboard(lattice0)
 
-    if use_pallas:
-        # Derive disjoint int32 seed ranges from the key: each sweeps-call
-        # consumes O(nblocks) seeds per sweep; stride generously.
-        base = jax.random.randint(key, (), 0, 2**30, dtype=jnp.int32)
-        R, C = lattice0.shape
+    if route == "triton":
+        from tsu_tpu.ops import checkerboard_triton as ct
 
-        if R % 8 == 0:
-            # Fastest path: the fused kernel (red+black in one grid pass,
-            # bf16 storage — spins are exact in bf16). Its row-band grid
-            # pipelines HBM traffic against compute, which beats the
-            # VMEM-resident kernel's serial chunk loop at every measured
-            # size (docs/BENCHMARKS.md).
-            from tsu_tpu.ops.checkerboard_fused import fused_sweeps
+        # int8 planes in a (1, R, C/2) batch; every sweep of the run draws
+        # with its own counter under one key.
+        red, black = red.astype(jnp.int8)[None], black.astype(jnp.int8)[None]
+        key2 = ct.key_words(key)
 
-            def sweeps(i, red, black, n):
-                red16, black16 = fused_sweeps(
-                    base + i * jnp.int32(1_000_033),
-                    red.astype(jnp.bfloat16), black.astype(jnp.bfloat16),
-                    temperature, n, J=J, field=field, periodic=periodic,
-                )
-                return red16.astype(red.dtype), black16.astype(black.dtype)
-        else:
-            from tsu_tpu.ops.checkerboard_pallas import (
-                checkerboard_sweeps_planes_pallas,
-            )
+        def sweeps(i, red, black, n):
+            return ct.sweeps(key2, red, black, temperature, n, J=J,
+                             field=field, periodic=periodic, sweep_offset=i)
 
-            def sweeps(i, red, black, n):
-                return checkerboard_sweeps_planes_pallas(
-                    base + i * jnp.int32(1_000_033), red, black, temperature, n,
-                    J=J, field=field, periodic=periodic,
-                )
+        offset = lambda i: n_burnin + i * n_sweeps
+        state = lambda red, black: merge_checkerboard(red, black)[0].astype(
+            lattice0.dtype)
     else:
 
         def sweeps(i, red, black, n):
@@ -79,22 +64,20 @@ def sample_grid(
                 J=J, field=field, periodic=periodic,
             )
 
+        offset = lambda i: 1 + i
+        state = merge_checkerboard
+
     red, black = sweeps(0, red, black, n_burnin)
 
     def collect(carry, i):
         red, black = carry
-        red, black = sweeps(1 + i, red, black, n_sweeps)
-        return (red, black), merge_checkerboard(red, black)
+        red, black = sweeps(offset(i), red, black, n_sweeps)
+        return (red, black), state(red, black)
 
     _, states = jax.lax.scan(collect, (red, black), jnp.arange(n_samples))
     return states
 
 
-@partial(
-    jax.jit,
-    static_argnames=("n_samples", "n_burnin", "n_sweeps", "J", "field",
-                     "periodic", "use_pallas"),
-)
 def sample_grid_ensemble(
     key,
     lattices0,
@@ -109,56 +92,58 @@ def sample_grid_ensemble(
     use_pallas: bool | None = None,
 ):
     """Sample an ENSEMBLE of lattices, each at its own temperature, in one
-    compiled program — every sweep of every member is a single batched
-    fused-kernel launch (ops/checkerboard_fused.fused_sweeps_batched).
+    compiled program — on the GPU kernel every half-sweep of every member
+    is one batched launch (ops/checkerboard_triton.sweeps).
 
-    The TPU-native replacement for per-temperature Python loops: a whole
-    phase-transition scan (B temperature points x one lattice each) or an
-    independent-replica error-bar ensemble runs at fused-kernel speed.
-    Per-member PRNG streams are decorrelated by member-indexed seeds
-    (hardware-verified in tests/test_tpu_kernels.py).
+    A whole phase-transition scan (B temperature points x one lattice each)
+    or an independent-replica error-bar ensemble runs as one program
+    instead of a Python loop over temperatures. Members draw from disjoint
+    generator streams (the lattice index is part of the counter).
 
     Args:
         lattices0: (B, R, C) initial spin configurations (+-1).
         temperatures: scalar or (B,) — per-member temperatures.
+        use_pallas: None lets :func:`tsu_tpu.ops.select.choose_sweep`
+            decide; True demands the GPU kernel; False forces XLA.
     Returns:
         dict with per-sample per-member observables, shapes (n_samples, B):
         ``magnetization`` (per spin) and ``energy`` (total), matching
         ops/checkerboard.sample_lattice conventions.
     """
+    from tsu_tpu.ops.select import choose_sweep
+
+    route = choose_sweep(lattices0.shape, "uniform", use_pallas=use_pallas)
+    return _sample_grid_ensemble(
+        key, lattices0, temperatures, n_samples=n_samples, J=J, field=field,
+        n_burnin=n_burnin, n_sweeps=n_sweeps, periodic=periodic, route=route)
+
+
+@partial(
+    jax.jit,
+    static_argnames=("n_samples", "n_burnin", "n_sweeps", "J", "field",
+                     "periodic", "route"),
+)
+def _sample_grid_ensemble(key, lattices0, temperatures, *, n_samples, J,
+                          field, n_burnin, n_sweeps, periodic, route):
     from tsu_tpu.ops.checkerboard import lattice_energy_batch
 
     B, R, C = lattices0.shape
     n_sites = R * C
-    if use_pallas is None:
-        # The fused batched kernel's hardware PRNG has no CPU lowering
-        # outside interpret mode, so the default must be backend-aware
-        # (r4 review finding: a bare use_pallas=True default crashed CPU
-        # callers).
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and R % 8 == 0:
-        from tsu_tpu.ops.checkerboard_fused import fused_sweeps_batched
+    Ts = jnp.broadcast_to(
+        jnp.asarray(temperatures, jnp.float32).reshape(-1), (B,))
+    if route == "triton":
+        from tsu_tpu.ops import checkerboard_triton as ct
 
-        dtype = jnp.bfloat16
-        reds, blacks = jax.vmap(split_checkerboard)(
-            lattices0.astype(dtype))
-        seeds = jax.random.randint(key, (B,), 0, 2**30, dtype=jnp.int32)
+        reds, blacks = split_checkerboard(lattices0.astype(jnp.int8))
+        key2 = ct.key_words(key)
 
         def sweeps(i, reds, blacks, n):
-            # Per-call seed stride keeps streams fresh across burn-in and
-            # every thinning block (the in-call sweep counter restarts).
-            return fused_sweeps_batched(
-                seeds + i * jnp.int32(1_000_033), reds, blacks,
-                temperatures, n, J=J, field=field, periodic=periodic,
-            )
-    else:
-        from tsu_tpu.ops.checkerboard import checkerboard_sweeps_planes
+            return ct.sweeps(key2, reds, blacks, Ts, n, J=J, field=field,
+                             periodic=periodic, sweep_offset=i)
 
-        dtype = jnp.float32
-        reds, blacks = jax.vmap(split_checkerboard)(
-            lattices0.astype(dtype))
-        Ts = jnp.broadcast_to(
-            jnp.asarray(temperatures, jnp.float32).reshape(-1), (B,))
+        offset = lambda i: n_burnin + i * n_sweeps
+    else:
+        reds, blacks = split_checkerboard(lattices0.astype(jnp.float32))
 
         def sweeps(i, reds, blacks, n):
             ks = jax.random.split(jax.random.fold_in(key, i), B)
@@ -167,13 +152,15 @@ def sample_grid_ensemble(
                     k, r, b, T, n, J=J, field=field, periodic=periodic)
             )(ks, reds, blacks, Ts)
 
+        offset = lambda i: 1 + i
+
     reds, blacks = sweeps(0, reds, blacks, n_burnin)
 
     def collect(carry, i):
         reds, blacks = carry
-        reds, blacks = sweeps(1 + i, reds, blacks, n_sweeps)
-        lat = jax.vmap(merge_checkerboard)(
-            reds.astype(jnp.float32), blacks.astype(jnp.float32))
+        reds, blacks = sweeps(offset(i), reds, blacks, n_sweeps)
+        lat = merge_checkerboard(reds.astype(jnp.float32),
+                                 blacks.astype(jnp.float32))
         m = jnp.sum(lat, axis=(-2, -1)) / n_sites
         e = lattice_energy_batch(lat, J=J, field=field, periodic=periodic)
         return (reds, blacks), (m, e)

@@ -1,6 +1,7 @@
 """ctypes bindings for the native graph tools, with a pure-Python fallback.
 
-The shared library is built on demand with g++ (see build.sh); if no
+The shared library is built from graph_tools.cpp at first use with g++ (see
+build.sh, or `make native`) into a git-ignored file; if no
 toolchain is available the NumPy fallbacks keep everything functional
 (just slower on very large graphs).
 """

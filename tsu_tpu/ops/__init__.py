@@ -1,1 +1,1 @@
-"""Compute kernels: XLA-compiled reference paths and Pallas TPU kernels."""
+"""Compute kernels: XLA engines, the Pallas GPU sweep kernel and its chooser."""

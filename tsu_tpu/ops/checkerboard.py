@@ -2,7 +2,7 @@
 
 This replaces the reference's scalar per-bit Python loop over a dense N^2
 coupling matrix (tsu/gibbs.py:128-162 driven through tsu/models/ising.py:150-181)
-with the TPU-native formulation:
+with a vectorized formulation:
 
 * The lattice is a (R, C) array of spins in {-1,+1}; couplings are an implicit
   nearest-neighbor stencil (uniform J, optional field h) — O(N) memory instead
@@ -15,7 +15,7 @@ with the TPU-native formulation:
 
 The half-lattice ("compact") layout used here stores each color as a
 (R, C/2) plane so no lane is wasted on masked-out sites; this is also the
-memory layout of the Pallas kernel (tsu_tpu/ops/checkerboard_pallas.py) and
+memory layout of the GPU kernel (tsu_tpu/ops/checkerboard_triton.py) and
 of the spatially-sharded path (tsu_tpu/parallel/lattice.py).
 
 Layout: for row i, red plane column j2 holds lattice column 2*j2 + (i % 2);

@@ -70,20 +70,17 @@ def color_bond_weights(Jh, Jv, field=0.0, periodic: bool = True):
 
 
 def pack_bond_codes(weights):
-    """Pack the discrete-path weight planes into ONE bf16 code plane per
-    color: bits (2i, 2i+1) of the code hold w_i + 1 for (up, down, left,
-    right), values 0..170 — exact in bf16 (8 mantissa bits cover integers
-    to 256). The +-J kernel path is HBM-bound at 4 weight planes + field
-    (~14 B/site/sweep measured at the roofline); a single 2-byte code
-    drops it to ~6 B/site, which moves the bound past the kernel's VPU
-    ceiling. Requires the discrete contract: every weight in {-1, 0, +1}
-    and zero field (discrete_table_applicable).
+    """Pack the +-J weight planes into ONE uint8 code plane per color: bits
+    (2i, 2i+1) of the code hold w_i + 1 for (up, down, left, right),
+    values 0..170. The GPU kernel reads this one byte per site in place of
+    four weight planes and a field plane. Requires the discrete contract:
+    every weight in {-1, 0, +1} and zero field (discrete_table_applicable).
     """
     out = {}
     for color, (wu, wd, wl, wr, f) in weights.items():
         code = ((wu + 1.0) + (wd + 1.0) * 4.0 + (wl + 1.0) * 16.0
                 + (wr + 1.0) * 64.0)
-        out[color] = jnp.asarray(code, jnp.bfloat16)
+        out[color] = jnp.asarray(code, jnp.uint8)
     return out
 
 
@@ -167,8 +164,8 @@ def lattice_energy_bonds_planes(red, black, weights, *,
     with each bond counted once; the field term sums both colors. Equal to
     lattice_energy_bonds(merge_checkerboard(red, black), ...) (validated in
     tests) without the merge or a dtype round-trip — the hot PT loop calls
-    this every iteration on bf16 planes (+-J weights and +-1 spins make the
-    bf16 neighbor arithmetic exact; the site sum accumulates in f32).
+    this every iteration on its sweep planes (int8 on the GPU kernel, f32
+    on XLA); the site sum accumulates in f32.
     """
     w_up, w_down, w_left, w_right, f_r = weights["red"]
     if periodic:
@@ -193,7 +190,7 @@ def lattice_energy_bonds_planes(red, black, weights, *,
 @partial(
     jax.jit,
     static_argnames=("n_samples", "n_burnin", "n_sweeps", "periodic",
-                     "collect", "use_pallas"),
+                     "collect", "route"),
 )
 def sample_lattice_bonds(
     key,
@@ -208,34 +205,39 @@ def sample_lattice_bonds(
     n_sweeps: int = 1,
     periodic: bool = True,
     collect: str = "states",
-    use_pallas: bool = False,
+    route: str = "xla",
 ):
     """Boltzmann-sample a random-bond 2-D lattice (cf. sample_lattice).
 
     collect="states" returns (n_samples, R, C); "observables" returns
     per-sample magnetization/energy scalars only (large lattices).
-    ``use_pallas`` routes sweeps through the fused TPU bond kernel
-    (checkerboard_bonds_pallas — in-kernel PRNG, one HBM pass per color).
+    ``route="triton"`` runs the GPU kernel on packed bond codes; the caller
+    guarantees the +-J contract (ops/select.bond_contract).
     """
     weights = color_bond_weights(Jh, Jv, field, periodic)
     red, black = split_checkerboard(lattice0)
     k_burn, k_main = jax.random.split(key)
 
-    if use_pallas:
-        from tsu_tpu.ops.checkerboard_bonds_pallas import (
-            checkerboard_sweeps_bonds_pallas,
-        )
+    if route == "triton":
+        from tsu_tpu.ops import checkerboard_triton as ct
+
+        codes = pack_bond_codes(weights)
+        dtype = red.dtype
+        red, black = red.astype(jnp.int8)[None], black.astype(jnp.int8)[None]
 
         def sweeps(k, red, black, n):
-            seed = jax.random.randint(k, (), 0, 2**31 - 1, jnp.int32)
-            return checkerboard_sweeps_bonds_pallas(
-                seed, red, black, weights, temperature, n, periodic=periodic
-            )
+            return ct.sweeps(ct.key_words(k), red, black, temperature, n,
+                             periodic=periodic, codes=codes)
+
+        def merged(red, black):
+            return merge_checkerboard(red, black)[0].astype(dtype)
     else:
         def sweeps(k, red, black, n):
             return checkerboard_sweeps_bonds(
                 k, red, black, weights, temperature, n, periodic=periodic
             )
+
+        merged = merge_checkerboard
 
     red, black = sweeps(k_burn, red, black, max(n_burnin, 1)) \
         if n_burnin else (red, black)
@@ -246,7 +248,7 @@ def sample_lattice_bonds(
     def step(carry, k):
         red, black = carry
         red, black = sweeps(k, red, black, n_sweeps)
-        lat = merge_checkerboard(red, black)
+        lat = merged(red, black)
         if collect == "states":
             return (red, black), lat
         m = jnp.sum(lat) / n_sites

@@ -152,3 +152,59 @@ def lattice_energy_np(s: np.ndarray, J: float = 1.0, h: float = 0.0,
     else:
         bond = np.sum(s[:, :-1] * s[:, 1:]) + np.sum(s[:-1, :] * s[1:, :])
     return float(-J * bond - h * np.sum(s))
+
+
+def onsager_energy(T: float, J: float = 1.0) -> float:
+    """Exact energy per site of the infinite 2-D Ising lattice (Onsager):
+    u = -J coth(2K) [1 + (2/pi) (2 tanh^2(2K) - 1) K1(k)], K = J/T,
+    k = 2 sinh(2K) / cosh^2(2K), K1 the complete elliptic integral of the
+    first kind (scipy's ellipk takes the parameter m = k^2)."""
+    from scipy.special import ellipk
+
+    K = J / T
+    k = 2.0 * np.sinh(2 * K) / np.cosh(2 * K) ** 2
+    return float(-J / np.tanh(2 * K) * (
+        1.0 + 2.0 / np.pi * (2.0 * np.tanh(2 * K) ** 2 - 1.0) * ellipk(k * k)))
+
+
+def lattice_energy_bonds_np(s: np.ndarray, Jh: np.ndarray, Jv: np.ndarray,
+                            periodic: bool = True) -> float:
+    """NumPy per-bond 2-D energy E = -sum_b J_b s_i s_j (float64): Jh[r, c]
+    couples (r, c)-(r, c+1), Jv[r, c] couples (r, c)-(r+1, c)."""
+    s = np.asarray(s, dtype=np.float64)
+    Jh = np.asarray(Jh, dtype=np.float64)
+    Jv = np.asarray(Jv, dtype=np.float64)
+    eh = Jh * s * np.roll(s, -1, axis=-1)
+    ev = Jv * s * np.roll(s, -1, axis=-2)
+    if not periodic:
+        eh, ev = eh[..., :, :-1], ev[..., :-1, :]
+    return float(-(eh.sum() + ev.sum()))
+
+
+def heat_bath_threshold_halfstep_np(s: np.ndarray, u24: np.ndarray,
+                                    table: np.ndarray, color: int,
+                                    periodic: bool = True, Jh=None,
+                                    Jv=None) -> np.ndarray:
+    """One colour of a threshold-table heat-bath sweep on a full (R, C) spin
+    lattice, site by site: every site with (r + c) % 2 == color gets
+    +1 when u24[r, c] < table[local + 4] (local = integer neighbour field,
+    bonds from Jh/Jv or all 1), else -1. Independent of the compact layout
+    and of JAX: the oracle of the GPU sweep kernel's arithmetic."""
+    s = np.array(s, dtype=np.int64)
+    R, C = s.shape
+    Jh = np.ones((R, C), np.int64) if Jh is None else np.asarray(Jh, np.int64)
+    Jv = np.ones((R, C), np.int64) if Jv is None else np.asarray(Jv, np.int64)
+    out = s.copy()
+    for r in range(R):
+        for c in range(C):
+            if (r + c) % 2 != color:
+                continue
+            local = 0
+            for rr, cc, w in ((r - 1, c, Jv[(r - 1) % R, c]),
+                              (r + 1, c, Jv[r, c]),
+                              (r, c - 1, Jh[r, (c - 1) % C]),
+                              (r, c + 1, Jh[r, c])):
+                if periodic or (0 <= rr < R and 0 <= cc < C):
+                    local += w * s[rr % R, cc % C]
+            out[r, c] = 1 if u24[r, c] < table[local + 4] else -1
+    return out

@@ -10,8 +10,8 @@ first-class:
   via ``ppermute`` (the TP/SP analog; same neighbor-shift pattern as ring
   attention).
 
-Collectives are compiled by XLA over ICI/DCN; there is no hand-written
-transport (the idiomatic TPU replacement for NCCL/MPI).
+Collectives are compiled by XLA, which hands them to NCCL on GPUs; there is
+no hand-written transport.
 """
 
 from tsu_tpu.parallel.mesh import make_mesh, mesh_info, plan_lattice_mesh

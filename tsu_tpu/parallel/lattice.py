@@ -4,7 +4,7 @@ The structural analog of sequence parallelism for this workload (SURVEY.md
 §5.7): one big lattice state sharded over the ``row`` mesh axis, with
 1-row-wide boundary strips exchanged between neighboring shards via
 ``jax.lax.ppermute`` before each half-sweep — the same neighbor-to-neighbor
-torus-shift communication pattern as ring attention, riding ICI.
+shift communication pattern as ring attention.
 
 The whole run (burn-in, thinning, observable collection) is ONE jitted
 ``shard_map``: sweeps scan on-device, observables reduce with ``psum``, and
@@ -17,8 +17,10 @@ Correctness notes (SURVEY.md §8.3 item 2):
 * Periodic vertical boundaries map to the mesh-wrap permute (last shard sends
   to shard 0); open boundaries zero the outermost halos, which contributes
   nothing to the local field.
-* Per-shard PRNG streams are decorrelated by folding the shard index into the
-  key/seed.
+* XLA route: per-shard PRNG streams are decorrelated by folding the shard
+  index into the key. GPU-kernel route: every shard shares one Philox key
+  and passes its global row offset, so the sharded lattice draws exactly
+  the bits of the unsharded one and gives identical spins.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from tsu_tpu.ops.checkerboard import (
     merge_checkerboard,
     split_checkerboard,
 )
+from tsu_tpu.ops import checkerboard_triton as ct
 
 
 def _halo_exchange(plane, axis_name: str, periodic: bool):
@@ -59,26 +62,6 @@ def _halo_exchange(plane, axis_name: str, periodic: bool):
         up_row = jnp.where(idx == 0, 0.0, up_row)
         down_row = jnp.where(idx == n - 1, 0.0, down_row)
     return up_row, down_row
-
-
-def _halo_exchange2(plane, axis_name: str, periodic: bool):
-    """Two-row halo exchange for the FUSED sharded path.
-
-    The fused kernel consumes 2-row black halos (global rows start-2,
-    start-1 above and end, end+1 below) because it recomputes a one-row red
-    extension on each side of every band. Returns (up2, down2), each
-    (2, C2); zeroed at the global boundary for open lattices.
-    """
-    n = jax.lax.axis_size(axis_name)
-    idx = jax.lax.axis_index(axis_name)
-    fwd = [(i, (i + 1) % n) for i in range(n)]
-    bwd = [(i, (i - 1) % n) for i in range(n)]
-    up2 = jax.lax.ppermute(plane[-2:, :], axis_name, fwd)
-    down2 = jax.lax.ppermute(plane[:2, :], axis_name, bwd)
-    if not periodic:
-        up2 = jnp.where(idx == 0, 0.0, up2)
-        down2 = jnp.where(idx == n - 1, 0.0, down2)
-    return up2, down2
 
 
 def _halo_exchange_cols(plane, axis_name: str, periodic: bool):
@@ -102,37 +85,18 @@ def _halo_exchange_cols(plane, axis_name: str, periodic: bool):
     return left_col, right_col
 
 
-def _make_local_halfstep(
-    axis_name, periodic, use_pallas, J, field, col_axis=None
-):
+def _make_local_halfstep(axis_name, periodic, route, J, field, col_axis=None):
     """Build the per-shard half-sweep: halo exchange + color update.
 
     The returned function takes temperature as an ARGUMENT (not a closure
     capture) so one compiled program serves every temperature — and so the
     whole sharded program can be built once per static configuration and
-    cached (see :func:`_sharded_sweeps_fn`).
+    cached (see :func:`_sharded_sweeps_fn`). ``k`` feeds the XLA route;
+    ``key2`` and ``sweep`` the kernel route.
     """
 
     if col_axis is not None:
-        if use_pallas:
-            from tsu_tpu.ops.checkerboard_pallas import halfsweep_pallas
-
-            def one_halfstep2d_pallas(k, seed, other, update_red, T,
-                                      u24=None):
-                up, down = _halo_exchange(other, axis_name, periodic)
-                left, right = _halo_exchange_cols(other, col_axis, periodic)
-                # Horizontal wrap/open boundaries are realized by the
-                # exchanged (or zeroed) halo columns, so the kernel runs in
-                # its col_halo mode with no in-kernel edge masking.
-                return halfsweep_pallas(
-                    seed, T, other, up, down,
-                    update_red=update_red, J=J, field=field, periodic=True,
-                    left_col=left, right_col=right, u24=u24,
-                )
-
-            return one_halfstep2d_pallas
-
-        def one_halfstep2d(k, seed, other, update_red, T, u24=None):
+        def one_halfstep2d(k, key2, sweep, other, update_red, T, u24=None):
             up, down = _halo_exchange(other, axis_name, periodic)
             left, right = _halo_exchange_cols(other, col_axis, periodic)
             return halfstep_with_halo2d(
@@ -141,72 +105,23 @@ def _make_local_halfstep(
 
         return one_halfstep2d
 
-    def one_halfstep(k, seed, other, update_red, T, u24=None):
+    def one_halfstep(k, key2, sweep, other, update_red, T, u24=None):
         up, down = _halo_exchange(other, axis_name, periodic)
-        if use_pallas:
-            from tsu_tpu.ops.checkerboard_pallas import halfsweep_pallas
-
-            # Horizontal wrap stays in-shard under row sharding, so
-            # ``periodic`` only governs the kernel's column masking; the
-            # vertical boundary is realized by the exchanged halo rows.
-            return halfsweep_pallas(
-                seed, T, other, up, down,
-                update_red=update_red, J=J, field=field, periodic=periodic,
-                u24=u24,
-            )
+        if route == "triton":
+            # Horizontal wrap stays in-shard under row sharding; the
+            # vertical boundary is the exchanged (or zeroed) halo rows.
+            row0 = jax.lax.axis_index(axis_name) * other.shape[0]
+            return ct.halfsweep(
+                key2, sweep, ct.sigmoid_table(J, field, T)[None],
+                other[None], up[None], down[None], update_red=update_red,
+                periodic=periodic, row_offset=row0,
+                u24=None if u24 is None else u24[None],
+            )[0]
         return halfstep_with_halo(
             k, other, up, down, update_red, T, J, field, periodic
         )
 
     return one_halfstep
-
-
-def _make_local_fused_sweep(axis_name, periodic, J, field):
-    """Build the per-shard FULL sweep on the fused kernel: one 2-row halo
-    exchange + ONE kernel launch per sweep per shard — the same program the
-    single-chip headline runs (ops/checkerboard_fused.py), so the sharded
-    path pays only the ppermute, not a slower kernel (r3 verdict weak #1:
-    the streaming 2-launch path ran at ~24% of the fused headline).
-
-    Shard boundaries ride the kernel's row-group-keyed PRNG: every shard
-    passes the SAME base seed plus its global row-group offset, so the red
-    extension rows recomputed at a shard edge are bit-identical to the rows
-    the neighbor shard stores.
-    """
-    from tsu_tpu.ops.checkerboard_fused import fused_sweep_pallas
-
-    def one_sweep(base, sweep_idx, red_l, black_l, T, u=None):
-        n = jax.lax.axis_size(axis_name)
-        idx = jax.lax.axis_index(axis_name)
-        gpb_shard = red_l.shape[0] // 8
-        shard_info = (
-            idx * gpb_shard,
-            n * gpb_shard,
-            (idx == 0).astype(jnp.int32),
-            (idx == n - 1).astype(jnp.int32),
-        )
-        up2, down2 = _halo_exchange2(black_l, axis_name, periodic)
-        u_halo = None
-        if u is not None:
-            # Red-update uniforms of the extension rows (global rows
-            # start-1 / end) are stored by the neighbor shards; wrap-permute
-            # them alongside the spin halos. (At an open global boundary
-            # the kernel zeroes those extension rows, so the wrapped values
-            # are never read into the lattice.)
-            fwd = [(i, (i + 1) % n) for i in range(n)]
-            bwd = [(i, (i - 1) % n) for i in range(n)]
-            u_halo = (
-                jax.lax.ppermute(u[0][-1:, :], axis_name, fwd),
-                jax.lax.ppermute(u[0][:1, :], axis_name, bwd),
-            )
-        return fused_sweep_pallas(
-            jnp.stack([base, sweep_idx]), red_l, black_l, T,
-            J=J, field=field, periodic=periodic,
-            up2=up2, down2=down2, shard_info=shard_info,
-            uniforms=u, uniforms_halo=u_halo,
-        )
-
-    return one_sweep
 
 
 def _local_observables(red, black, axis_name, periodic, J, field, col_axis=None):
@@ -216,8 +131,7 @@ def _local_observables(red, black, axis_name, periodic, J, field, col_axis=None)
     upper row / left column (its "down"/"right" bond), delivered by halo
     exchange of the merged local lattice's first row / column.
     """
-    # f32 accumulation: the fused path stores bf16 planes, and summing
-    # millions of +-1 spins in bf16 would lose whole integer counts.
+    # f32 accumulation: the kernel route stores int8 planes.
     lat = merge_checkerboard(red, black).astype(jnp.float32)
     n = jax.lax.axis_size(axis_name)
     idx = jax.lax.axis_index(axis_name)
@@ -249,50 +163,15 @@ def _local_observables(red, black, axis_name, periodic, J, field, col_axis=None)
 
 
 @lru_cache(maxsize=64)
-def _sharded_sweeps_fn(mesh, n_sweeps, J, field, periodic, use_pallas,
-                       axis_name, col_axis, fused):
-    """Build + jit the sharded sweeps program ONCE per static configuration.
-
-    The r3 scaling run exposed ~200 ms of Python re-trace per call when the
-    shard_map closure was rebuilt inside the entry function; caching the
-    jitted program (keyed on mesh + statics; temperature is an argument)
-    makes repeat calls pure dispatch.
-    """
+def _sharded_sweeps_fn(mesh, n_sweeps, J, field, periodic, route, axis_name,
+                       col_axis):
+    """Build + jit the sharded sweeps program ONCE per static configuration
+    (keyed on mesh + statics; temperature is an argument), so repeat calls
+    are pure dispatch instead of a re-trace."""
     spec = P(axis_name, col_axis)
     uspec = P(None, None, axis_name, col_axis)
-    if fused:
-        local_fused = _make_local_fused_sweep(axis_name, periodic, J, field)
-
-        @partial(
-            shard_map,
-            mesh=mesh,
-            in_specs=(P(), spec, spec, P(), uspec),
-            out_specs=(spec, spec),
-            check_vma=False,
-        )
-        def run(key, red_l, black_l, T, uniforms_l):
-            # The fused kernel's row-group-keyed PRNG requires the SAME base
-            # seed on every shard (streams are decorrelated by global row
-            # group, and boundary bit-equality depends on shards agreeing);
-            # the replicated key gives exactly that. No shard fold here.
-            base = jax.random.randint(key, (), 0, 2**31 - 1, dtype=jnp.int32)
-
-            def body(carry, inp):
-                red_l, black_l = carry
-                sweep_idx, u = inp
-                red_l, black_l = local_fused(
-                    base, sweep_idx, red_l, black_l, T, u)
-                return (red_l, black_l), None
-
-            (red_l, black_l), _ = jax.lax.scan(
-                body, (red_l, black_l), (jnp.arange(n_sweeps), uniforms_l)
-            )
-            return red_l, black_l
-
-        return jax.jit(run)
-
     local_halfstep = _make_local_halfstep(
-        axis_name, periodic, use_pallas, J, field, col_axis
+        axis_name, periodic, route, J, field, col_axis
     )
 
     @partial(
@@ -306,26 +185,19 @@ def _sharded_sweeps_fn(mesh, n_sweeps, J, field, periodic, use_pallas,
         shard = jax.lax.axis_index(axis_name)
         if col_axis is not None:
             shard = shard * jax.lax.axis_size(col_axis) + jax.lax.axis_index(col_axis)
-        # Pallas seed schedule: identity components (base, shard*2+color)
-        # fold in-kernel via fold_seed; the sweep index rides the second
-        # prng_seed slot as a within-run counter. The r2 additive schedule
-        # ((sweep*2 + shard*131) * 65537) collided across shards once sweep
-        # counts passed ~65: shard s at sweep i and shard s' at sweep
-        # i + 65.5*(s'-s) replayed identical streams.
-        base = jax.random.randint(key, (), 0, 2**31 - 1, dtype=jnp.int32)
+        # Kernel route: one key on every shard (streams are keyed by global
+        # site). XLA route: a per-shard key.
+        key2 = ct.key_words(key)
         key = jax.random.fold_in(key, shard)
 
         def body(carry, inp):
             red_l, black_l = carry
             sweep_idx, k, u = inp
             k_r, k_b = jax.random.split(k)
-            sc = shard * 2
-            red_l = local_halfstep(
-                k_r, jnp.stack([base, sweep_idx, sc]), black_l, True, T,
-                None if u is None else u[0])
-            black_l = local_halfstep(
-                k_b, jnp.stack([base, sweep_idx, sc + 1]), red_l, False, T,
-                None if u is None else u[1])
+            red_l = local_halfstep(k_r, key2, sweep_idx, black_l, True, T,
+                                   None if u is None else u[0])
+            black_l = local_halfstep(k_b, key2, sweep_idx, red_l, False, T,
+                                     None if u is None else u[1])
             return (red_l, black_l), None
 
         keys = jax.random.split(key, n_sweeps)
@@ -335,6 +207,19 @@ def _sharded_sweeps_fn(mesh, n_sweeps, J, field, periodic, use_pallas,
         return red_l, black_l
 
     return jax.jit(run)
+
+
+def _route(shape, use_pallas, col_axis):
+    """The chooser's decision for a sharded uniform lattice. The GPU kernel
+    takes row halos only, so column sharding runs XLA."""
+    from tsu_tpu.ops.select import choose_sweep
+
+    if col_axis is not None:
+        if use_pallas:
+            raise ValueError("the GPU sweep kernel supports row sharding "
+                             "only; use a row-only mesh (plan_lattice_mesh)")
+        return "xla"
+    return choose_sweep(shape, "uniform", use_pallas=use_pallas)
 
 
 def sharded_checkerboard_sweeps(
@@ -348,70 +233,38 @@ def sharded_checkerboard_sweeps(
     J: float = 1.0,
     field: float = 0.0,
     periodic: bool = True,
-    use_pallas: bool = False,
+    use_pallas: bool | None = None,
     axis_name: str = "row",
     col_axis: str | None = None,
     uniforms: jax.Array | None = None,
-    fused: bool | None = None,
 ):
     """n_sweeps full sweeps on compact color planes sharded over ``axis_name``
     (rows) and optionally ``col_axis`` (compact columns — 2-D sharding).
 
     ``red``/``black`` have global shape (R, C/2), sharded
     (axis_name, col_axis). Returns updated (red, black), same sharding.
-    ``uniforms``: optional (n_sweeps, 2, R, C2) int32, sharded like the
-    planes — deterministic mode for the Pallas paths (interpret-mode CI
-    equality tests of kernel + halo exchange together). Values are in
-    [0, 2^24) for the streaming kernel, [0, 2^16) for the fused kernel.
-
-    ``fused``: run the single-launch fused kernel per sweep (the single-chip
-    headline program) instead of the 2-launch streaming kernel. Default
-    (None) auto-selects it whenever it applies: Pallas path, row-only
-    sharding, shards a multiple of 8 rows, no injected uniforms (injected
-    callers choose the kernel explicitly because the two consume different
-    uniform widths).
+    ``use_pallas``: None lets :func:`tsu_tpu.ops.select.choose_sweep`
+    decide (row sharding only); on the kernel route the result equals the
+    single-device ``checkerboard_triton.sweeps`` with ``key_words(key)``.
+    ``uniforms``: optional (n_sweeps, 2, R, C2) int32 in [0, 2^24), sharded
+    like the planes — deterministic mode of the kernel route (exact tests
+    of kernel + halo exchange together).
     """
     n_shards = mesh.shape[axis_name]
     R, C2 = red.shape
-    assert R % n_shards == 0 and (R // n_shards) % 2 == 0, (
-        f"rows per shard must be even: R={R}, shards={n_shards}"
-    )
-    if fused is None:
-        fused = (use_pallas and col_axis is None and uniforms is None
-                 and (R // n_shards) % 8 == 0)
-        if use_pallas and not fused and uniforms is None:
-            # Not an error — but never a silent 4x: the caller asked for
-            # the kernel path and is getting the 2-launch streaming kernel
-            # because of column sharding or a non-multiple-of-8 shard
-            # height (r4 verdict weak #3). plan_lattice_mesh picks a
-            # topology that keeps the fused path whenever one exists.
-            import warnings
-
-            reason = ("column sharding" if col_axis is not None else
-                      f"rows-per-shard {R // n_shards} % 8 != 0")
-            warnings.warn(
-                f"sharded sweeps fall back to the ~4x slower streaming "
-                f"kernel ({reason}); row-only sharding with "
-                "rows-per-shard % 8 == 0 runs the fused headline kernel "
-                "(docs/DISTRIBUTED.md)", RuntimeWarning, stacklevel=2)
-    if fused:
-        assert use_pallas, "fused path is a Pallas kernel"
-        assert col_axis is None, "fused path supports row sharding only"
-        assert (R // n_shards) % 8 == 0, (
-            f"fused path needs rows-per-shard % 8 == 0: R={R}, "
-            f"shards={n_shards}"
-        )
-    if col_axis is not None:
-        assert C2 % mesh.shape[col_axis] == 0, (
-            f"compact columns must divide evenly: C/2={C2}, "
-            f"shards={mesh.shape[col_axis]}"
-        )
-    # Injected uniforms are consumed only by the Pallas kernels; the XLA
-    # paths would silently ignore them (r2 advisor finding), so reject that
-    # combination loudly.
-    assert uniforms is None or use_pallas, "uniforms require the pallas path"
+    if R % n_shards or (R // n_shards) % 2:
+        raise ValueError(f"rows per shard must be even: R={R}, "
+                         f"shards={n_shards}")
+    if col_axis is not None and C2 % mesh.shape[col_axis]:
+        raise ValueError(f"compact columns must divide evenly: C/2={C2}, "
+                         f"shards={mesh.shape[col_axis]}")
+    route = _route((R, 2 * C2), use_pallas, col_axis)
+    # Injected uniforms are consumed only by the kernel; the XLA routes
+    # would silently ignore them, so reject that combination loudly.
+    if uniforms is not None and route != "triton":
+        raise ValueError("uniforms require the GPU kernel route")
     fn = _sharded_sweeps_fn(mesh, n_sweeps, float(J), float(field), periodic,
-                            use_pallas, axis_name, col_axis, fused)
+                            route, axis_name, col_axis)
     if uniforms is not None:
         uniforms = jax.device_put(
             jnp.asarray(uniforms, jnp.int32),
@@ -433,10 +286,9 @@ def sharded_lattice_sample(
     n_burnin: int = 100,
     n_sweeps: int = 1,
     periodic: bool = True,
-    use_pallas: bool = False,
+    use_pallas: bool | None = None,
     axis_name: str = "row",
     col_axis: str | None = None,
-    fused: bool | None = None,
     dtype=None,
     checkpoint_path: str | None = None,
     checkpoint_every: int = 0,
@@ -450,11 +302,11 @@ def sharded_lattice_sample(
     the final sharded planes. Full states stay sharded on device; only
     (n_samples,) scalars come back.
 
-    ``fused`` (default auto, see :func:`sharded_checkerboard_sweeps`) runs
-    the single-launch fused kernel per sweep. ``dtype`` sets the plane
-    storage dtype: default bfloat16 on the fused path (the headline-kernel
-    configuration; +-1 spins are exact in bf16, observables accumulate in
-    f32), float32 otherwise.
+    ``use_pallas``: None lets :func:`tsu_tpu.ops.select.choose_sweep`
+    decide (row sharding only). On the kernel route every shard shares one
+    Philox key, so any row split gives the same spins and observables.
+    ``dtype`` sets the plane storage dtype: default int8 on the kernel
+    route (observables accumulate in f32), float32 otherwise.
 
     ``checkpoint_path`` + ``checkpoint_every`` (in samples) run the program
     in chunks and snapshot the sharded planes + collected observables after
@@ -465,25 +317,15 @@ def sharded_lattice_sample(
     """
     n_shards = mesh.shape[axis_name]
     R, C = lattice0.shape
-    assert R % n_shards == 0 and (R // n_shards) % 2 == 0, (
-        f"rows per shard must be even: R={R}, shards={n_shards}"
-    )
-    if fused is None:
-        fused = (use_pallas and col_axis is None
-                 and (R // n_shards) % 8 == 0)
-    if fused:
-        assert use_pallas and col_axis is None
-        assert (R // n_shards) % 8 == 0, (
-            f"fused path needs rows-per-shard % 8 == 0: R={R}, "
-            f"shards={n_shards}"
-        )
-    if col_axis is not None:
-        assert (C // 2) % mesh.shape[col_axis] == 0, (
-            f"compact columns must divide evenly: C/2={C // 2}, "
-            f"shards={mesh.shape[col_axis]}"
-        )
+    if R % n_shards or (R // n_shards) % 2:
+        raise ValueError(f"rows per shard must be even: R={R}, "
+                         f"shards={n_shards}")
+    if col_axis is not None and (C // 2) % mesh.shape[col_axis]:
+        raise ValueError(f"compact columns must divide evenly: C/2={C // 2}, "
+                         f"shards={mesh.shape[col_axis]}")
+    route = _route((R, C), use_pallas, col_axis)
     if dtype is None:
-        dtype = jnp.bfloat16 if fused else jnp.float32
+        dtype = jnp.int8 if route == "triton" else jnp.float32
     red, black = split_checkerboard(jnp.asarray(lattice0, dtype=dtype))
     sharding = NamedSharding(mesh, P(axis_name, col_axis))
     red = jax.device_put(red, sharding)
@@ -493,8 +335,8 @@ def sharded_lattice_sample(
 
     if checkpoint_path is None or checkpoint_every <= 0:
         fn = _sharded_sample_fn(mesh, n_samples, n_burnin, n_sweeps,
-                                float(J), float(field), periodic, use_pallas,
-                                axis_name, col_axis, fused)
+                                float(J), float(field), periodic, route,
+                                axis_name, col_axis)
         ms, es, red, black = fn(key, red, black, T, jnp.int32(0),
                                 burn_offset)
         return {
@@ -534,7 +376,7 @@ def sharded_lattice_sample(
         n = min(checkpoint_every, n_samples - done)
         fn = _sharded_sample_fn(mesh, n, n_burnin if done == 0 else 0,
                                 n_sweeps, float(J), float(field), periodic,
-                                use_pallas, axis_name, col_axis, fused)
+                                route, axis_name, col_axis)
         ms, es, red, black = fn(key, red, black, T, jnp.int32(done),
                                 burn_offset)
         ms_parts.append(np.asarray(ms))
@@ -553,16 +395,13 @@ def sharded_lattice_sample(
 
 @lru_cache(maxsize=64)
 def _sharded_sample_fn(mesh, n_samples, n_burnin, n_sweeps, J, field,
-                       periodic, use_pallas, axis_name, col_axis, fused):
+                       periodic, route, axis_name, col_axis):
     """Cached jitted builder for :func:`sharded_lattice_sample` (one trace
     per static configuration; temperature is an argument)."""
     spec = P(axis_name, col_axis)
-    if fused:
-        local_fused = _make_local_fused_sweep(axis_name, periodic, J, field)
-    else:
-        local_halfstep = _make_local_halfstep(
-            axis_name, periodic, use_pallas, J, field, col_axis
-        )
+    local_halfstep = _make_local_halfstep(
+        axis_name, periodic, route, J, field, col_axis
+    )
 
     @partial(
         shard_map,
@@ -574,7 +413,7 @@ def _sharded_sample_fn(mesh, n_samples, n_burnin, n_sweeps, J, field,
     def run(key, red_l, black_l, T, start, burn_offset):
         # ``start``: global index of the first sample this call produces;
         # ``burn_offset``: the run's total burn-in sweeps. Both traced so a
-        # checkpointed continuation replays the exact seed/counter schedule
+        # checkpointed continuation replays the exact key/counter schedule
         # of the uninterrupted program (sample i always folds 1 + i and
         # sweeps from burn_offset + i * n_sweeps, no matter which chunk
         # executes it).
@@ -583,25 +422,18 @@ def _sharded_sample_fn(mesh, n_samples, n_burnin, n_sweeps, J, field,
         if col_axis is not None:
             shard = shard * jax.lax.axis_size(col_axis) + jax.lax.axis_index(col_axis)
             n_sites = n_sites * jax.lax.axis_size(col_axis)
-        # Folded-identity + sweep-counter seed schedule — see
-        # _sharded_sweeps_fn. The fused path keeps the base replicated (no
-        # shard fold): its streams are keyed by global row group.
-        base = jax.random.randint(key, (), 0, 2**31 - 1, dtype=jnp.int32)
-        if not fused:
-            key = jax.random.fold_in(key, shard)
+        # Kernel route: one key on every shard, counter = global sweep.
+        # XLA route: a per-shard key.
+        key2 = ct.key_words(key)
+        key = jax.random.fold_in(key, shard)
 
         def sweeps(carry, step_base, k, n):
             def body(c, inp):
                 red_l, black_l = c
                 i, kk = inp
-                if fused:
-                    return local_fused(base, i, red_l, black_l, T), None
                 k_r, k_b = jax.random.split(kk)
-                sc = shard * 2
-                red_l = local_halfstep(
-                    k_r, jnp.stack([base, i, sc]), black_l, True, T)
-                black_l = local_halfstep(
-                    k_b, jnp.stack([base, i, sc + 1]), red_l, False, T)
+                red_l = local_halfstep(k_r, key2, i, black_l, True, T)
+                black_l = local_halfstep(k_b, key2, i, red_l, False, T)
                 return (red_l, black_l), None
 
             idxs = step_base + jnp.arange(n)

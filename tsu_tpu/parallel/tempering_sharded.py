@@ -10,7 +10,7 @@ temperature ladder. Swap rounds exchange **rungs, not lattices**
      pair decisions (shared PRNG key), permutes the rung assignment, and
      continues sweeping at its (possibly new) temperature.
 
-Nothing large ever crosses the interconnect; ICI carries only O(n_replicas)
+Nothing large ever crosses the interconnect; it carries only O(n_replicas)
 scalars per swap round. Per-sweep (magnetization, energy, rung) traces come
 back so cold-chain (rung 0) observables can be selected on the host.
 """
@@ -53,20 +53,16 @@ def _local_sweeps(key, red, black, temperature, n_sweeps, J, field, periodic):
     return red, black
 
 
-def _local_sweeps_fused(key, reds, blacks, temperatures, n_sweeps, J, field,
-                        periodic):
-    """Per-device replica batch through the batched fused kernel: all local
-    rungs advance in one launch per sweep at their own temperatures (the
-    same program single-device ladders run — samplers/tempering.py)."""
-    from tsu_tpu.ops.checkerboard_fused import fused_sweeps_batched
+def _local_sweeps_kernel(key, reds, blacks, temperatures, n_sweeps, J, field,
+                         periodic):
+    """Per-device replica batch through the GPU sweep kernel: all local
+    rungs advance in one launch per half-sweep at their own temperatures
+    (the same program single-device ladders run — samplers/tempering.py).
+    ``key`` is already folded with the device index."""
+    from tsu_tpu.ops import checkerboard_triton as ct
 
-    B = reds.shape[0]
-    seeds = jax.random.randint(key, (B,), 0, 2**30, dtype=jnp.int32)
-    reds, blacks = fused_sweeps_batched(
-        seeds, reds.astype(jnp.bfloat16), blacks.astype(jnp.bfloat16),
-        temperatures, n_sweeps, J=J, field=field, periodic=periodic,
-    )
-    return reds.astype(jnp.float32), blacks.astype(jnp.float32)
+    return ct.sweeps(ct.key_words(key), reds, blacks, temperatures, n_sweeps,
+                     J=J, field=field, periodic=periodic)
 
 
 def _rung_swap(key, energies, rungs, betas_ladder, offset):
@@ -118,18 +114,20 @@ def parallel_tempering_replica_sharded(
     device are folded into a local batch). Returns dict with per-sample
     (n_samples, n_replicas) magnetization, energy, rung traces, swap stats.
 
-    ``use_pallas`` (default auto: TPU + rows divisible by 8): each device
-    sweeps its local replica batch through the batched fused kernel, one
-    launch per sweep, each rung at its own temperature.
+    On the GPU kernel (``use_pallas``: None lets
+    :func:`tsu_tpu.ops.select.choose_sweep` decide) each device sweeps its
+    local replica batch in one launch per half-sweep, each rung at its own
+    temperature.
     """
+    from tsu_tpu.ops.select import choose_sweep
+
     temperatures = jnp.asarray(temperatures, dtype=jnp.float32)
     n_rep = temperatures.shape[0]
     n_dev = mesh.shape[axis_name]
     assert n_rep % n_dev == 0, f"{n_rep} replicas on {n_dev} devices"
     per_dev = n_rep // n_dev
     rows, cols = shape
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu" and rows % 8 == 0
+    route = choose_sweep(shape, "uniform", use_pallas=use_pallas)
     n_sites = rows * cols
     betas_ladder = 1.0 / jnp.sort(temperatures)
     ladder_sorted = jnp.sort(temperatures)
@@ -168,8 +166,8 @@ def parallel_tempering_replica_sharded(
             t, k = inp
             my_T = ladder_sorted[rungs[my_slots]]  # (per_dev,)
             k_sweep = jax.random.fold_in(k, dev)
-            if use_pallas:
-                red_l, black_l = _local_sweeps_fused(
+            if route == "triton":
+                red_l, black_l = _local_sweeps_kernel(
                     k_sweep, red_l, black_l, my_T, n_sweeps, J, field,
                     periodic)
             else:

@@ -209,10 +209,10 @@ def parallel_tempering_lattice(
     the data stays put under jit since XLA fuses the gather). Returns
     (cold_samples (n_samples, R, C), info).
 
-    ``use_pallas`` (default auto: TPU backend + rows divisible by 8) sweeps
-    ALL replicas in one batched fused-kernel launch per sweep, each at its
-    own rung temperature (ops/checkerboard_fused.fused_sweeps_batched) —
-    the whole ladder advances at the single-chip headline kernel's rate.
+    On the GPU kernel (``use_pallas``: None lets
+    :func:`tsu_tpu.ops.select.choose_sweep` decide) ALL replicas sweep in
+    one batched launch per half-sweep, each at its own rung temperature
+    (ops/checkerboard_triton.sweeps).
     """
     from tsu_tpu.ops.checkerboard import (
         checkerboard_sweeps,
@@ -221,12 +221,12 @@ def parallel_tempering_lattice(
         split_checkerboard,
     )
 
+    from tsu_tpu.ops.select import choose_sweep
+
     temperatures = jnp.asarray(temperatures, dtype=jnp.float32)
     R = temperatures.shape[0]
     betas = 1.0 / temperatures
-    if use_pallas is None:
-        use_pallas = (jax.default_backend() == "tpu"
-                      and shape[0] % 8 == 0)
+    route = choose_sweep(shape, "uniform", use_pallas=use_pallas)
 
     k_init, k_run = jax.random.split(key)
     states = jnp.where(
@@ -234,19 +234,16 @@ def parallel_tempering_lattice(
     ).astype(jnp.float32)
     total = n_burnin + n_samples
 
-    if use_pallas:
-        from tsu_tpu.ops.checkerboard_fused import fused_sweeps_batched
+    if route == "triton":
+        from tsu_tpu.ops import checkerboard_triton as ct
 
         def sweep_all(k, states, i):
-            reds, blacks = jax.vmap(split_checkerboard)(
-                states.astype(jnp.bfloat16))
-            seeds = jax.random.randint(k, (R,), 0, 2**30, dtype=jnp.int32)
-            reds, blacks = fused_sweeps_batched(
-                seeds, reds, blacks, temperatures, n_sweeps,
+            reds, blacks = split_checkerboard(states.astype(jnp.int8))
+            reds, blacks = ct.sweeps(
+                ct.key_words(k), reds, blacks, temperatures, n_sweeps,
                 J=J, field=field, periodic=periodic,
             )
-            return jax.vmap(merge_checkerboard)(
-                reds.astype(jnp.float32), blacks.astype(jnp.float32))
+            return merge_checkerboard(reds, blacks).astype(jnp.float32)
     else:
 
         def sweep_all(k, states, i):
@@ -272,47 +269,35 @@ class _BondPlaneOps:
 
     The hot PT loops carry PLANES in the sweep dtype rather than full
     lattices, so each iteration is kernel half-sweeps + a plane-space
-    energy (lattice_energy_bonds_planes): no split/merge and no
-    f32<->bf16 round-trip per iteration (measured at 256^2 x 115 rungs:
-    those conversions cost more than the sweeps themselves).
+    energy (lattice_energy_bonds_planes): no split/merge and no dtype
+    round-trip per iteration.
     """
 
     def __init__(self, Jh, Jv, *, field=0.0, periodic=True, use_pallas=None):
-        from tsu_tpu.ops.checkerboard_bonds import color_bond_weights
-        from tsu_tpu.samplers.annealing import discrete_table_applicable
+        from tsu_tpu.ops.checkerboard_bonds import (
+            color_bond_weights,
+            pack_bond_codes,
+        )
+        from tsu_tpu.ops.select import bond_contract, choose_sweep
 
         Jh = jnp.asarray(Jh, jnp.float32)
         Jv = jnp.asarray(Jv, jnp.float32)
-        rows, _ = Jh.shape
-        if use_pallas is None:
-            # Same gate as every sibling kernel path: the block/halo tiling
-            # requires rows % 8 == 0 (r4 review: a % 2 gate routed 100x100
-            # lattices into misaligned Pallas blocks instead of XLA).
-            use_pallas = jax.default_backend() == "tpu" and rows % 8 == 0
-        from tsu_tpu.samplers.annealing import pure_pm1_applicable
-
-        self.discrete = discrete_table_applicable(Jh, Jv, field)
-        self.pure = bool(self.discrete
-                         and pure_pm1_applicable(Jh, Jv, field, periodic))
-        self.use_pallas = bool(use_pallas)
+        self.discrete = bond_contract(Jh, Jv, field) == "pm_j"
+        self.route = choose_sweep(Jh.shape,
+                                  "pm_j" if self.discrete else "bonds",
+                                  use_pallas=use_pallas)
         self.periodic = periodic
         self.Jh, self.Jv, self.field = Jh, Jv, field
-        weights = color_bond_weights(Jh, Jv, field, periodic=periodic)
-        # energy_planes consumes the plain weight planes regardless of how
-        # the sweep kernel stores its couplings.
-        self.energy_weights = weights
-        self.packed = bool(self.use_pallas and self.discrete)
-        if self.packed:
-            # Discrete +-J kernel path: ONE bf16 code plane per color
-            # instead of five weight planes — the kernel was measured at
-            # the HBM roofline, so this is a direct throughput win
-            # (ops/checkerboard_bonds.pack_bond_codes).
-            from tsu_tpu.ops.checkerboard_bonds import pack_bond_codes
-
-            weights = pack_bond_codes(weights)
-        self.weights = weights
-        self.dtype = (jnp.bfloat16
-                      if self.use_pallas and self.discrete else jnp.float32)
+        # energy_planes consumes the plain weight planes whichever way the
+        # sweep stores its couplings.
+        self.weights = color_bond_weights(Jh, Jv, field, periodic=periodic)
+        self.energy_weights = self.weights
+        if self.route == "triton":
+            # +-J kernel: one uint8 bond code per site and int8 spins.
+            self.codes = pack_bond_codes(self.weights)
+            self.dtype = jnp.int8
+        else:
+            self.dtype = jnp.float32
 
     def init_planes(self, key, batch, rows, cols):
         from tsu_tpu.ops.checkerboard import split_checkerboard
@@ -323,20 +308,12 @@ class _BondPlaneOps:
         return split_checkerboard(states.astype(self.dtype))
 
     def sweep_planes(self, k, reds, blacks, temperatures, n_sweeps):
-        if self.use_pallas:
-            from tsu_tpu.ops.checkerboard_bonds_pallas import (
-                checkerboard_sweeps_bonds_batched,
-            )
+        if self.route == "triton":
+            from tsu_tpu.ops import checkerboard_triton as ct
 
-            B = reds.shape[0]
-            # Per-(iteration, replica) seeds; the in-call counter covers
-            # the n_sweeps x 2 half-sweeps inside.
-            seeds = jax.random.randint(k, (B,), 0, 2**30, dtype=jnp.int32)
-            return checkerboard_sweeps_bonds_batched(
-                seeds, reds, blacks, self.weights, temperatures, n_sweeps,
-                periodic=self.periodic, discrete=self.discrete,
-                packed=self.packed, pure=self.pure,
-            )
+            return ct.sweeps(ct.key_words(k), reds, blacks, temperatures,
+                             n_sweeps, periodic=self.periodic,
+                             codes=self.codes)
         # XLA fallback: the bond halfstep broadcasts over the replica
         # batch directly, temperatures ride (B, 1, 1).
         from tsu_tpu.ops.checkerboard_bonds import checkerboard_sweeps_bonds
@@ -367,7 +344,7 @@ def _make_bond_sweeper(Jh, Jv, *, field=0.0, periodic=True,
                        use_pallas=None):
     """Batched full-lattice replica sweeper over one bond realization.
 
-    Returns (sweep_all, energy_of, discrete, use_pallas) where
+    Returns (sweep_all, energy_of, discrete, kernel) where
     ``sweep_all(key, states, t, temperatures, n_sweeps)`` advances a batch
     of full lattices (B, R, C) one round — every replica at its own
     temperature — and ``energy_of(states)`` gives per-replica energies.
@@ -392,7 +369,7 @@ def _make_bond_sweeper(Jh, Jv, *, field=0.0, periodic=True,
         return lattice_energy_bonds(states, ops.Jh, ops.Jv, ops.field,
                                     periodic=periodic)
 
-    return sweep_all, energy_of, ops.discrete, ops.use_pallas
+    return sweep_all, energy_of, ops.discrete, ops.route == "triton"
 
 
 def parallel_tempering_bonds(
@@ -413,11 +390,11 @@ def parallel_tempering_bonds(
 
     The workhorse algorithm for spin glasses: every rung of the ladder
     sweeps the SAME bond realization (Jh, Jv) at its own temperature, and
-    adjacent rungs exchange states by the Metropolis rule. On TPU all
-    replicas advance through ONE batched bond-kernel launch per half-sweep
-    (ops/checkerboard_bonds_pallas.checkerboard_sweeps_bonds_batched; the
-    +-J discrete threshold-table path applies when the bonds are +-1/0 and
-    field == 0); elsewhere the XLA bond halfstep broadcasts over replicas.
+    adjacent rungs exchange states by the Metropolis rule. On the GPU
+    kernel all replicas advance through ONE batched launch per half-sweep
+    (ops/checkerboard_triton.sweeps on packed codes; it applies when the
+    bonds are +-1/0 and field == 0); otherwise the XLA bond halfstep
+    broadcasts over replicas.
 
     Returns (cold_samples (n_samples, R, C) — the coldest rung's states —
     and an info dict with swap statistics and per-replica energy traces),
@@ -439,7 +416,7 @@ def parallel_tempering_bonds(
     temperatures = jnp.sort(jnp.asarray(temperatures, dtype=jnp.float32))
     R = temperatures.shape[0]
     betas = 1.0 / temperatures
-    sweep_batch, energy_of, discrete, use_pallas = _make_bond_sweeper(
+    sweep_batch, energy_of, discrete, kernel = _make_bond_sweeper(
         Jh, Jv, field=field, periodic=periodic, use_pallas=use_pallas)
 
     k_init, k_run = jax.random.split(key)
@@ -456,5 +433,5 @@ def parallel_tempering_bonds(
         betas, total=total, swap_interval=swap_interval, n_burnin=n_burnin,
     )
     info = _pt_info(acc_p, att_p, energy_hist, finals)
-    info["discrete_table_path"] = bool(use_pallas and discrete)
+    info["discrete_table_path"] = bool(kernel and discrete)
     return cold, info
